@@ -13,8 +13,13 @@ card, in phases; any phase that fails exits nonzero:
    tie-heavy ones, f32 and bf16, negative gammas — the forward's ``y``
    and the backward's ``dz`` BITWISE, the backward's dgamma_t/dbeta_t
    within rtol 1e-5, atol 1e-4, and two backward launches bitwise equal
-   to each other; times each (CUDA events over queued launches, median
-   of windows) beside its memory bound and its launch count; prints, as
+   to each other; the backward also at the shapes and layouts that reach
+   its other code paths (``BWD_PATH_CASES``: channel tails, the scalar
+   instantiation, planes no multiple of its tile, a misaligned z, a
+   strided g); times each (CUDA events over queued launches, median of
+   windows) beside its memory bound and its launch count, and prints the
+   backward's registers, shared memory, occupancy and achieved rate at
+   the train stem; prints, as
    information, the whole train-mode stem module forward and backward at
    the train stem — the fused ``FusedBNReLUPool`` (batch statistics,
    both kernels) against the unfused BN -> ReLU -> max-pool the model
@@ -25,7 +30,9 @@ card, in phases; any phase that fails exits nonzero:
    stem's size in f32; the grid accumulator within rtol 1e-6 of an f64
    sum and the same on two launches; each timed beside its byte bound,
    its plain version and the one PyTorch call that computes the same
-   function. Then the tooling path: ``python -m
+   function, kernel and call in a paired A/B (20 ABBA alternations of
+   their windows: medians, the median paired difference, its IQR and
+   extremes, and the verdict). Then the tooling path: ``python -m
    dptpu_torch.tools.probe_mosaic``, ``probe_mosaic2`` and
    ``stem_bench`` on the card, each exiting 0, the probe tools launching
    each kernel once (their printed counters); ``stem_bench``'s
@@ -59,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -100,6 +108,8 @@ PROBE_SHAPES = {
 }
 # the grid accumulator (summed in f64, rounded once) against an f64 sum
 ACCUM_RTOL = 1e-6
+# kernel vs library windows in each probe's paired A/B
+PAIRS = 20
 # the tooling path's subprocesses: a process reaches the card in ~8 s
 TOOL_TIMEOUT_S = 300
 
@@ -122,6 +132,40 @@ def time_ms(fn, reps: int = 25, per_window: int = 10) -> float:
     from dptpu_torch.tools import time_ms as cuda_time_ms
 
     return cuda_time_ms(fn, reps, per_window)
+
+
+def paired_ms(fn_a, fn_b) -> dict:
+    """The repository's paired A/B: ``PAIRS`` alternations of one
+    ``time_ms`` window of ``fn_a`` and one of ``fn_b``, the order flipped
+    from pair to pair (ABBA) so that a drift of the card's clock cancels
+    in the median. Returns, in ms, the median of each side (``a_ms``,
+    ``b_ms``) and of the paired differences a - b (``delta_ms``), with the
+    differences' quartiles (``q1``, ``q3``) and extremes."""
+    a, b = [], []
+    for i in range(PAIRS):
+        if i % 2:
+            b.append(time_ms(fn_b))
+            a.append(time_ms(fn_a))
+        else:
+            a.append(time_ms(fn_a))
+            b.append(time_ms(fn_b))
+    d = [x - y for x, y in zip(a, b)]
+    q1, _, q3 = statistics.quantiles(d, n=4)
+    return {"a_ms": statistics.median(a), "b_ms": statistics.median(b),
+            "delta_ms": statistics.median(d), "q1": q1, "q3": q3,
+            "min": min(d), "max": max(d)}
+
+
+def paired_verdict(p: dict) -> str:
+    """A kernel against its library call, from their paired differences:
+    faster or slower only where the interquartile range of the
+    differences lies wholly on one side of 0."""
+    if p["q3"] < 0:
+        return "faster than the library call (the IQR lies below 0)"
+    if p["q1"] <= 0:
+        return "no slower than the library call within the spread (the " \
+               "IQR holds 0)"
+    return "slower than the library call (the IQR lies above 0)"
 
 
 def stem_bound_ms(shape, itemsize: int) -> float:
@@ -243,18 +287,51 @@ def phase_forward_kernel():
     return row
 
 
+# shapes that reach the backward kernel's other code paths, gated and not
+# timed: channel counts that leave a vector tail or take the scalar
+# instantiation, pooled planes that are no multiple of the 8 x 8 tile, and
+# two layouts ("offset": z one element past a 16-byte boundary, so the
+# scalar instantiation runs; "strided g": a g that is not NHWC-contiguous,
+# which the wrapper copies)
+BWD_PATH_CASES = (
+    ((2, 18, 18, 24), None), ((2, 18, 18, 72), None), ((2, 10, 30, 3), None),
+    ((3, 114, 114, 64), None), ((2, 30, 226, 64), None),
+    ((2, 18, 18, 64), "offset"), ((2, 18, 18, 64), "strided g"),
+)
+
+
+def _bwd_layout(z, g, layout):
+    """``z`` and ``g`` in the layout a gate case asks for: ``z`` copied one
+    element past its allocation's start, or ``g`` as an NHWC view of an
+    NCHW-contiguous tensor."""
+    import torch
+
+    if layout == "offset":
+        flat = torch.empty(z.numel() + 1, dtype=z.dtype, device=z.device)
+        shifted = flat[1:].view(z.shape)
+        shifted.copy_(z)
+        return shifted, g
+    if layout == "strided g":
+        return z, g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return z, g
+
+
 def phase_backward_kernel():
-    """Fused stem backward kernel vs its plain version at the train stem
-    and at small and odd ones, f32 and bf16, randn and tie-heavy inputs,
-    negative gammas: dz bitwise, dgamma_t/dbeta_t within the JAX test's
-    tolerance, two launches bitwise equal. Times each beside its bound,
-    and the stem modules' forward + backward at the train stem. Returns
-    the train-stem bf16 row of the kernel table."""
+    """Fused stem backward kernel vs its plain version at the train stem,
+    at small and odd shapes and at the cases of ``BWD_PATH_CASES``, f32 and
+    bf16, randn and tie-heavy inputs, negative gammas: dz bitwise,
+    dgamma_t/dbeta_t within the JAX test's tolerance, two launches bitwise
+    equal. Times each of the first shapes beside its bound, prints the
+    kernel's registers, shared memory, occupancy and achieved rate at the
+    train stem, and times the stem modules' forward + backward there.
+    Returns the train-stem bf16 row of the kernel table."""
     import torch
 
     from dptpu_torch.ops.fused_stem import (
         affine_relu_pool_backward,
         affine_relu_pool_backward_plain,
+        backward_kernel_attrs,
+        backward_vectorized,
     )
 
     rng = np.random.RandomState(1)
@@ -262,23 +339,26 @@ def phase_backward_kernel():
     row = None
     max_err = 0.0
     slice_shapes = [TRAIN_STEM, (2, 112, 112, 64)]
+    timed = slice_shapes + [(2, 8, 8, 64), (2, 32, 32, 64), (1, 7, 9, 64),
+                            (2, 15, 15, 64)]
     for dtype, itemsize, bits in ((torch.float32, 4, torch.int32),
                                   (torch.bfloat16, 2, torch.int16)):
-        for shape in slice_shapes + [(2, 8, 8, 64), (2, 32, 32, 64),
-                                     (1, 7, 9, 64), (2, 15, 15, 64)]:
+        for shape, layout in [(s, None) for s in timed] + list(BWD_PATH_CASES):
             gamma, beta = _stem_case(rng, shape, dtype)
             b, h, w, c = shape
             g = torch.randn((b, (h + 1) // 2, (w + 1) // 2, c),
                             device="cuda", generator=gen).to(dtype)
             zs = torch.randn(shape, device="cuda", generator=gen)
             launches0 = affine_relu_pool_backward.launches
+            copies0 = affine_relu_pool_backward.g_copies
             for kind, zn in (("randn", zs), ("ties", torch.round(zs * 2) / 2)):
-                z = zn.to(dtype)
-                got = affine_relu_pool_backward(z, gamma, beta, g)
-                again = affine_relu_pool_backward(z, gamma, beta, g)
-                ref = affine_relu_pool_backward_plain(z, gamma, beta, g)
+                z, g_in = _bwd_layout(zn.to(dtype), g, layout)
+                got = affine_relu_pool_backward(z, gamma, beta, g_in)
+                again = affine_relu_pool_backward(z, gamma, beta, g_in)
+                ref = affine_relu_pool_backward_plain(z, gamma, beta, g_in)
                 torch.cuda.synchronize()
-                what = f"fused stem backward {dtype} {shape} {kind}"
+                what = (f"fused stem backward {dtype} {shape}"
+                        f"{f' ({layout})' if layout else ''} {kind}")
                 check(all(a.shape == r.shape and a.dtype == r.dtype
                           for a, r in zip(got, ref)),
                       f"{what}: kernel gives "
@@ -298,21 +378,43 @@ def phase_backward_kernel():
                           f"by {(a.float() - r.float()).abs().max().item()}")
                 check(all(torch.equal(x, y) for x, y in zip(got, again)),
                       f"{what}: two launches differ (not deterministic)")
+            path = ("vectorized" if backward_vectorized(z, g_in.contiguous())
+                    else "scalar-channel")
+            verdict = (f"dz bitwise equal to plain, dgamma/dbeta within rtol "
+                       f"{BWD_RTOL:g} atol {BWD_ATOL:g}, deterministic (randn "
+                       f"+ ties, negative gamma; {path} instantiation")
+            name = (f"kernel fused_stem_bwd {str(dtype)[6:]} {list(shape)}"
+                    f"{f' ({layout})' if layout else ''}")
+            if layout == "strided g":
+                copies = affine_relu_pool_backward.g_copies - copies0
+                check(copies == 4, f"{name}: {copies} incoming-gradient "
+                                   f"copies, want one per launch (4)")
+                verdict += f", g copied to NHWC {copies} times"
+            if shape not in timed:
+                print(f"{name}: {verdict}; not timed)", flush=True)
+                continue
             ms = time_ms(lambda: affine_relu_pool_backward(z, gamma, beta, g))
             plain_ms = time_ms(
                 lambda: affine_relu_pool_backward_plain(z, gamma, beta, g),
                 reps=7, per_window=3)
             bound = stem_bwd_bound_ms(shape, itemsize)
-            print(f"kernel fused_stem_bwd {str(dtype)[6:]} {list(shape)}: dz "
-                  f"bitwise equal to plain, dgamma/dbeta within rtol "
-                  f"{BWD_RTOL:g} atol {BWD_ATOL:g}, deterministic (randn + "
-                  f"ties, negative gamma); kernel {ms * 1e3:.1f} us, plain "
+            print(f"{name}: {verdict}); kernel {ms * 1e3:.1f} us, plain "
                   f"{plain_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
                   f"({bound / ms:.1%} of bound), launches in this check and "
                   f"its timing {affine_relu_pool_backward.launches - launches0}"
                   f"{'' if shape in slice_shapes else ' (not a slice shape)'}",
                   flush=True)
             if shape == TRAIN_STEM:
+                attrs = backward_kernel_attrs(dtype, True, c)
+                gb_per_s = bound * HBM_BYTES_PER_S / ms / 1e9
+                print(f"kernel fused_stem_bwd {str(dtype)[6:]} {list(shape)} "
+                      f"vectorized instantiation: {attrs['registers']} "
+                      f"registers a thread, {attrs['local_bytes']} local "
+                      f"(spill) bytes a thread, {attrs['shared_bytes']} "
+                      f"shared bytes and {attrs['threads']} threads a block, "
+                      f"{attrs['blocks_per_sm']} resident blocks an SM; "
+                      f"achieved {gb_per_s:.1f} GB/s of the "
+                      f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s bound", flush=True)
                 fused_ms, unfused_ms = stem_modules_ms(z, g)
                 print(f"information: train-mode stem module forward + "
                       f"backward {str(dtype)[6:]} {list(shape)}"
@@ -411,7 +513,8 @@ def phase_layout_probes():
     at each script's shape, a ragged one and the train stem's size; the
     accumulator against an f64 sum and itself; the library call against
     the kernel, bitwise. Each timed at the script's shape and the train
-    stem's size, kernel and library call in turns. Returns ``{kernel:
+    stem's size, against its library call in a paired A/B
+    (:func:`paired_ms`). Returns ``{kernel:
     row}`` with the train-stem-size times of the kernel table."""
     import torch
 
@@ -456,13 +559,12 @@ def phase_layout_probes():
                 print(f"kernel {what}: bitwise equal to plain (ragged "
                       f"shape, not timed)", flush=True)
                 continue
-            # kernel and library in turns (kernel, library, library,
-            # kernel), each the mean of its two readings
-            ms = time_ms(lambda: probe(x))
             lib_ms = None
-            if lib is not None:
-                lib_ms = sum(time_ms(lambda: lib(x)) for _ in range(2)) / 2
-                ms = (ms + time_ms(lambda: probe(x))) / 2
+            if lib is None:
+                ms = time_ms(lambda: probe(x))
+            else:
+                paired = paired_ms(lambda: probe(x), lambda: lib(x))
+                ms, lib_ms = paired["a_ms"], paired["b_ms"]
             plain_ms = time_ms(lambda: probe.plain(x), reps=7, per_window=3)
             bound = probe_bound_ms(probe.kernel, shape)
             if probe is layout_probes.accum:
@@ -475,7 +577,13 @@ def phase_layout_probes():
                          f"{rel:.2e}")
             else:
                 verdict = "bitwise equal to plain"
-                extra = f", library {lib_ms * 1e3:.1f} us"
+                extra = (f", library {lib_ms * 1e3:.1f} us; kernel - library "
+                         f"over {PAIRS} paired windows: median "
+                         f"{paired['delta_ms'] * 1e3:.2f} us, IQR "
+                         f"{paired['q1'] * 1e3:.2f}..{paired['q3'] * 1e3:.2f} "
+                         f"us, min..max {paired['min'] * 1e3:.2f}.."
+                         f"{paired['max'] * 1e3:.2f} us: "
+                         f"{paired_verdict(paired)}")
             print(f"kernel {what}: {verdict}; kernel {ms * 1e3:.1f} us, "
                   f"plain {plain_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
                   f"({bound / ms:.1%} of bound){extra}"

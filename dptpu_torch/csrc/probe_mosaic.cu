@@ -22,7 +22,23 @@
 // Design. The gathers are one float4 per thread along the contiguous L
 // (layout_gather.cuh): the parity reshapes and stack+reshapes that Mosaic
 // needed in place of stride-2 slices are index arithmetic here, and no
-// shared memory is used. The squeeze multiplies each float by 2 (exact).
+// shared memory is used.
+//
+// The squeeze (k_squeeze, scripts/probe_mosaic.py:48, o = 2 x, exact) is a
+// streaming copy with a multiply: one float4 per thread, 256 threads a
+// block, one block per 256 float4s, so every load has its own thread and
+// the card keeps as many in flight as it can hold. Timed in turns against
+// torch.mul(x, 2.0) it read 0.7% slower (277.4 against 275.4 us at the
+// train stem's size, H100 80GB HBM3 at 700 W), a gap below the spread
+// between calls; chip_smoke.py now times the two as a paired A/B (20 ABBA
+// alternations of their windows) and prints the median paired difference
+// and its spread (PERF.md has the verdict). Tried on the card in paired
+// A/Bs and not kept: a persistent grid-stride loop with the grid at SMs x
+// resident blocks and two independent float4 loads issued before their
+// stores, with and without __ldcs/__stcs (evict-first), and with 128-thread
+// blocks — all slower than this kernel, outside the spread; 128-thread
+// blocks and evict-first loads and stores without the persistent grid —
+// within the spread, so the simplest form stays.
 //
 // k_accum carries its sum in a VMEM scratch across the sequential grid over
 // S. On the card blocks run in no order and float atomics would change the

@@ -143,7 +143,7 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn = lib.dptpu_fused_stem_bwd
             fn.argtypes = [
-                ctypes.c_int,                                   # dtype
+                ctypes.c_int, ctypes.c_int,                     # dtype, vec
                 ctypes.c_void_p, ctypes.c_void_p,               # z, g
                 ctypes.c_void_p, ctypes.c_void_p,               # gamma, beta
                 ctypes.c_void_p,                                # dz
@@ -151,6 +151,10 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,                                # stream
             ]
+            fn.restype = ctypes.c_int
+            fn = lib.dptpu_fused_stem_bwd_attrs
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]                     # ..., out[5]
             fn.restype = ctypes.c_int
             # the layout probes: (x, o, four dims, stream)
             for name in ("squeeze", "parity_rows", "parity_cols",

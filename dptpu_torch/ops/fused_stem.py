@@ -199,16 +199,47 @@ def affine_relu_pool_forward(z: torch.Tensor, gamma_t: torch.Tensor,
 affine_relu_pool_forward.launches = 0
 
 
+def backward_vectorized(z: torch.Tensor, g: torch.Tensor) -> bool:
+    """Whether the backward kernel takes ``z`` and ``g`` in 16-byte
+    channel vectors (8 bf16 or 4 f32 channels a thread): C a multiple of
+    the vector width and both tensors 16-byte aligned (a view with a
+    storage offset may not be). Otherwise the kernel's scalar-channel
+    instantiation runs: same tiling, one channel a thread."""
+    per_vec = 16 // z.element_size()
+    return (z.shape[-1] % per_vec == 0 and z.data_ptr() % 16 == 0
+            and g.data_ptr() % 16 == 0)
+
+
+def backward_kernel_attrs(dtype: torch.dtype, vectorized: bool,
+                          channels: int) -> dict:
+    """What the compiler and the occupancy calculator say of the
+    backward kernel's instantiation for ``dtype`` (vectorized or scalar)
+    at ``channels``: registers and local (spill) bytes a thread, shared
+    bytes and threads a block, resident blocks an SM. Needs the card."""
+    import ctypes
+
+    from dptpu_torch.kernels.build import load_library
+
+    out = (ctypes.c_int * 5)()
+    rc = load_library().dptpu_fused_stem_bwd_attrs(
+        _DTYPE_CODES[dtype], int(vectorized), channels, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"fused stem backward attributes: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm"), out))
+
+
 def affine_relu_pool_backward(z: torch.Tensor, gamma_t: torch.Tensor,
                               beta_t: torch.Tensor, g: torch.Tensor):
     """The fused stem backward, ``(dz, dgamma_t, dbeta_t)``: see
     :func:`affine_relu_pool_backward_plain` for the math and shapes.
 
     On the CPU this is the plain version. On CUDA it launches the kernel
-    on the current stream: ``z`` must be NHWC-contiguous, and an incoming
-    ``g`` that is not is copied to NHWC first (counted in
-    ``affine_relu_pool_backward.g_copies``). The per-block partial sums
-    of the affine grads go to a buffer allocated here and are summed by a
+    on the current stream, vectorized where :func:`backward_vectorized`
+    allows: ``z`` must be NHWC-contiguous, and an incoming ``g`` that is
+    not is copied to NHWC first (counted in
+    ``affine_relu_pool_backward.g_copies``). The per-tile partial sums of
+    the affine grads go to a buffer allocated here and are summed by a
     second, fixed-order pass, so the result is the same on every run."""
     if z.device.type == "cpu":
         return affine_relu_pool_backward_plain(z, gamma_t, beta_t, g)
@@ -229,14 +260,15 @@ def affine_relu_pool_backward(z: torch.Tensor, gamma_t: torch.Tensor,
     gam = gamma_t.to(torch.float32).contiguous()
     bet = beta_t.to(torch.float32).contiguous()
     dz = torch.empty_like(z)
-    nblocks = lib.dptpu_fused_stem_bwd_blocks(b, h, w, c)
-    partials = torch.empty((2, max(nblocks, 1), c), dtype=torch.float64,
+    rows = lib.dptpu_fused_stem_bwd_blocks(b, h, w, c)
+    partials = torch.empty((2, c, max(rows, 1)), dtype=torch.float64,
                            device=z.device)
     dgb = torch.empty((2, c), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         rc = lib.dptpu_fused_stem_bwd(
-            _DTYPE_CODES[z.dtype], z.data_ptr(), g.data_ptr(),
+            _DTYPE_CODES[z.dtype], int(backward_vectorized(z, g)),
+            z.data_ptr(), g.data_ptr(),
             gam.data_ptr(), bet.data_ptr(), dz.data_ptr(),
             partials.data_ptr(), dgb.data_ptr(), b, h, w, c, stream,
         )

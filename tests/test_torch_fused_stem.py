@@ -21,6 +21,10 @@ The CUDA kernels are held to the same plain versions, bit for bit in
 ``y`` and ``dz``, on the card by chip_smoke.py.
 """
 
+import ctypes
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -299,3 +303,109 @@ def test_plain_backward_on_odd_planes_matches_autograd(shape, dtype):
     assert got[0].shape == zt.shape and got[0].is_contiguous()
     assert all(a.dtype == tdt for a in got)
     _assert_bwd_matches(got, [leaf.grad for leaf in leaves])
+
+
+# -- the shapes the backward kernel's code paths take -----------------------
+# The kernel tiles the pooled plane in 8 x 8 windows and the channels in
+# 16-byte vectors; these channel counts leave a vector tail (24, 72), fill
+# one vector (8) or take the scalar-channel instantiation (3), and these
+# planes' pooled sizes (9 x 9, 5 x 15, 9 x 9 and 5 x 15 odd) are no
+# multiple of the tile. The plain version is held to JAX there; on the
+# card chip_smoke.py holds the kernel to the plain version at such shapes.
+_PATH_CHANNELS = [3, 8, 24, 72]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", _PATH_CHANNELS)
+@pytest.mark.parametrize("plane", [(18, 18), (10, 30)])
+def test_plain_backward_matches_jax_xla_at_kernel_path_shapes(plane, c, dtype,
+                                                              ties):
+    """Even planes: against ``_bwd_xla``, ``dz`` bitwise and the affine
+    grads within the JAX test's tolerance, negative gammas included."""
+    shape = (2, *plane, c)
+    z, gam, bet, g = _grad_inputs(sum(shape), shape, ties, True)
+    tdt, jdt = _DTYPES[dtype]
+    (zt, gt, bt), (zj, gj, bj) = _both(z, gam, bet, dtype)
+    got = tfs.affine_relu_pool_backward_plain(
+        zt, gt.to(tdt), bt.to(tdt), torch.from_numpy(g).to(tdt))
+    ref = jfs._bwd_xla(zj, gj.astype(jdt), bj.astype(jdt),
+                       jnp.asarray(g).astype(jdt))
+    _assert_bwd_matches(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", _PATH_CHANNELS)
+@pytest.mark.parametrize("plane", [(17, 17), (9, 29)])
+def test_plain_backward_matches_jax_vjp_on_odd_kernel_path_shapes(plane, c,
+                                                                  dtype):
+    """Odd planes, where the JAX op differentiates its plain composition:
+    against ``jax.vjp`` of ``affine_relu_pool`` on tie-heavy input with
+    negative gammas, ``dz`` bitwise and the affine grads within the JAX
+    test's tolerance. (g carries no -0.0 here: the composition's
+    scatter-add starts from +0, the gather keeps a lone -0.0.)"""
+    shape = (2, *plane, c)
+    z, gam, bet = _inputs(sum(shape), shape, ties=True, negative_gamma=True)
+    rng = np.random.RandomState(sum(shape) + 1)
+    g = rng.randn(2, (plane[0] + 1) // 2, (plane[1] + 1) // 2,
+                  c).astype(np.float32)
+    tdt, jdt = _DTYPES[dtype]
+    (zt, gt, bt), (zj, gj, bj) = _both(z, gam, bet, dtype)
+    gj, bj = gj.astype(jdt), bj.astype(jdt)
+    _, vjp = jax.vjp(jfs.affine_relu_pool, zj, gj, bj)
+    ref = vjp(jnp.asarray(g).astype(jdt))
+    got = tfs.affine_relu_pool_backward_plain(
+        zt, gt.to(tdt), bt.to(tdt), torch.from_numpy(g).to(tdt))
+    _assert_bwd_matches(got, ref)
+
+
+# -- the kernels' C interface -----------------------------------------------
+
+_EXTERN_C = re.compile(r'extern "C"\s+(\w+)\s+(\w+)\s*\(([^)]*)\)')
+
+
+def _extern_c_functions():
+    """``(name, [is_pointer, ...])`` of every ``extern "C"`` function of
+    ``dptpu_torch/csrc/*.cu``, parsed from the sources."""
+    out = []
+    for src in build.sources():
+        for ret, name, params in _EXTERN_C.findall(src.read_text()):
+            assert ret == "int", f"{src.name}: {name} returns {ret}"
+            args = [p.strip() for p in params.split(",") if p.strip()]
+            out.append((name, ["*" in a for a in args]))
+    return out
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records what ``load_library``
+    declares on each entry point."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, name):
+        fn = types.SimpleNamespace()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.fixture
+def declared_library(monkeypatch):
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "build", lambda: build.BUILD_DIR / "lib.so")
+    monkeypatch.setattr(build.ctypes, "CDLL", _FakeLibrary)
+    return build.load_library()
+
+
+@pytest.mark.parametrize("name,pointers", _extern_c_functions(),
+                         ids=[n for n, _ in _extern_c_functions()])
+def test_every_entry_point_has_its_ctypes_signature(declared_library, name,
+                                                    pointers):
+    """Every ``extern "C"`` function gets ``argtypes`` and ``restype``
+    before it can be called: one argument type a parameter, each pointer
+    (and the stream) as ``c_void_p`` so no address is cut to 32 bits, each
+    int as ``c_int``."""
+    fn = getattr(declared_library, name)
+    assert fn.restype is ctypes.c_int
+    assert fn.argtypes == [ctypes.c_void_p if p else ctypes.c_int
+                           for p in pointers]
