@@ -13,13 +13,19 @@ card, in phases; any phase that fails exits nonzero:
    tie-heavy ones, f32 and bf16, negative gammas — the forward's ``y``
    and the backward's ``dz`` BITWISE, the backward's dgamma_t/dbeta_t
    within rtol 1e-5, atol 1e-4, and two backward launches bitwise equal
-   to each other; the backward also at the shapes and layouts that reach
-   its other code paths (``BWD_PATH_CASES``: channel tails, the scalar
-   instantiation, planes no multiple of its tile, a misaligned z, a
-   strided g); times each (CUDA events over queued launches, median of
-   windows) beside its memory bound and its launch count, and prints the
-   backward's registers, shared memory, occupancy and achieved rate at
-   the train stem; prints, as
+   to each other; each also at the shapes and layouts that reach its
+   other code paths (``FWD_PATH_CASES``, with gamma/beta in f32 and in
+   bf16, and ``BWD_PATH_CASES``: channel tails, the scalar
+   instantiation, planes no multiple of the tile, a misaligned z, a
+   strided g). The forward at every slice shape (the train stem, serve
+   exec batches 64, 16, 4 and 2) prints two lines: ``kernel ...`` with
+   the kernel's device time (50 launches in one CUDA graph, replayed
+   between CUDA events) beside its memory bound, and ``host ...`` with
+   the wrapper's host time a call (``perf_counter`` over queued calls);
+   below exec 16 the host's time is the longer. The backward is timed
+   by CUDA events over queued launches (median of windows). Each kernel
+   prints its registers, shared memory, occupancy and achieved rate at
+   the train stem; the phase prints, as
    information, the whole train-mode stem module forward and backward at
    the train stem — the fused ``FusedBNReLUPool`` (batch statistics,
    both kernels) against the unfused BN -> ReLU -> max-pool the model
@@ -59,6 +65,15 @@ card, in phases; any phase that fails exits nonzero:
 
 Run from the repository root; it exits nonzero without a card, and in a
 directory that holds nothing of the repository but this file.
+
+``python3 chip_smoke.py --parent DIR`` runs, instead of the phases above,
+the forward kernel against the one in DIR (a tree of the parent commit,
+e.g. ``git archive <commit>`` unpacked there): one worker process a tree,
+each on its own ``dptpu_torch``, asked in turns (20 ABBA pairs) for the
+kernel's device time at the train stem (bf16) and serve exec 64 (f32)
+and for the wrapper's host time a call at exec 2 (f32 and bf16), after a
+check that both give the same ``y`` bit for bit. It prints the medians,
+the median paired difference, its IQR and extremes, and the verdict.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import select
 import statistics
 import subprocess
 import sys
@@ -134,21 +150,22 @@ def time_ms(fn, reps: int = 25, per_window: int = 10) -> float:
     return cuda_time_ms(fn, reps, per_window)
 
 
-def paired_ms(fn_a, fn_b) -> dict:
-    """The repository's paired A/B: ``PAIRS`` alternations of one
-    ``time_ms`` window of ``fn_a`` and one of ``fn_b``, the order flipped
-    from pair to pair (ABBA) so that a drift of the card's clock cancels
-    in the median. Returns, in ms, the median of each side (``a_ms``,
-    ``b_ms``) and of the paired differences a - b (``delta_ms``), with the
-    differences' quartiles (``q1``, ``q3``) and extremes."""
+def paired(sample_a, sample_b) -> dict:
+    """The repository's paired A/B: ``PAIRS`` alternations of one sample
+    of ``sample_a`` and one of ``sample_b`` (each a callable returning a
+    number), the order flipped from pair to pair (ABBA) so that a drift of
+    the card's clock cancels in the median. Returns the median of each
+    side (``a_ms``, ``b_ms``) and of the paired differences a - b
+    (``delta_ms``), with the differences' quartiles (``q1``, ``q3``) and
+    extremes, in the samples' unit."""
     a, b = [], []
     for i in range(PAIRS):
         if i % 2:
-            b.append(time_ms(fn_b))
-            a.append(time_ms(fn_a))
+            b.append(sample_b())
+            a.append(sample_a())
         else:
-            a.append(time_ms(fn_a))
-            b.append(time_ms(fn_b))
+            a.append(sample_a())
+            b.append(sample_b())
     d = [x - y for x, y in zip(a, b)]
     q1, _, q3 = statistics.quantiles(d, n=4)
     return {"a_ms": statistics.median(a), "b_ms": statistics.median(b),
@@ -156,16 +173,21 @@ def paired_ms(fn_a, fn_b) -> dict:
             "min": min(d), "max": max(d)}
 
 
-def paired_verdict(p: dict) -> str:
-    """A kernel against its library call, from their paired differences:
-    faster or slower only where the interquartile range of the
-    differences lies wholly on one side of 0."""
+def paired_ms(fn_a, fn_b) -> dict:
+    """:func:`paired` of one ``time_ms`` window of ``fn_a`` and one of
+    ``fn_b``, in ms."""
+    return paired(lambda: time_ms(fn_a), lambda: time_ms(fn_b))
+
+
+def paired_verdict(p: dict, other: str = "the library call") -> str:
+    """A kernel against ``other``, from their paired differences: faster
+    or slower only where the interquartile range of the differences lies
+    wholly on one side of 0."""
     if p["q3"] < 0:
-        return "faster than the library call (the IQR lies below 0)"
+        return f"faster than {other} (the IQR lies below 0)"
     if p["q1"] <= 0:
-        return "no slower than the library call within the spread (the " \
-               "IQR holds 0)"
-    return "slower than the library call (the IQR lies above 0)"
+        return f"no slower than {other} within the spread (the IQR holds 0)"
+    return f"slower than {other} (the IQR lies above 0)"
 
 
 def stem_bound_ms(shape, itemsize: int) -> float:
@@ -230,13 +252,102 @@ def _stem_case(rng, shape, dtype, device="cuda"):
     return gamma.to(dtype), beta.to(dtype)
 
 
-def phase_forward_kernel():
-    """Fused stem forward kernel vs its plain version, bitwise, at every
-    shape the slices give it (the serve stem of exec batches 64, 16, 4 and
-    2, the train stem of batch 128, all at 224) and at small, odd and
-    tie-heavy ones, and times each (below exec 16 the time is the
-    wrapper's host cost, not the kernel's). Returns the train-stem bf16
-    row of the kernel table."""
+# the forward's slice shapes: the train stem (batch 128) and the serve
+# stem at each exec batch of buckets 1/4/16/64 (1 runs padded to 2)
+FWD_SLICE_SHAPES = [(n, 112, 112, 64) for n in (128, 64, 16, 4, 2)]
+SERVE_EXEC64 = (64, 112, 112, 64)
+# shapes that reach the forward kernel's other code paths, gated and not
+# timed, each with gamma/beta in f32 and in bf16: channel counts that leave
+# a vector tail or take the scalar instantiation, pooled planes that are no
+# multiple of its 8 x 8 tile (and odd ones), and z one element past a
+# 16-byte boundary ("offset"), which takes the scalar instantiation
+FWD_PATH_CASES = (
+    ((2, 18, 18, 3), None), ((2, 18, 18, 8), None), ((2, 18, 18, 24), None),
+    ((2, 18, 18, 72), None), ((3, 114, 114, 64), None),
+    ((2, 30, 226, 64), None), ((2, 7, 9, 64), None), ((1, 7, 9, 64), None),
+    ((2, 8, 8, 64), None), ((2, 32, 32, 64), None),
+    ((2, 18, 18, 64), "offset"),
+)
+# the calls a CUDA graph of the forward holds for its device time, and the
+# queued calls of a host-time sample
+GRAPH_CALLS = 50
+HOST_CALLS = 200
+
+
+def graph_device_us(fn, calls: int = GRAPH_CALLS, reps: int = 7) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed between CUDA events, so no host time falls
+    between the launches; the median over ``reps`` replays, divided by
+    ``calls``. The graph's own gap between two dependent launches stays
+    in (it shows at the smallest sizes only). ``torch.profiler``'s kernel
+    records would leave that gap out, but on an H100 under torch 2.11
+    they dropped launches' records, up to all of a window's."""
+    import torch
+
+    side = torch.cuda.Stream()  # warm-up off the default stream, as
+    side.wait_stream(torch.cuda.current_stream())  # capture wants it
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = HOST_CALLS, reps: int = 7) -> float:
+    """Host time of one call of ``fn``: ``perf_counter`` around ``calls``
+    calls queued back to back, stopped before the device is waited on,
+    with the garbage collector off as ``timeit`` runs; the median over
+    ``reps`` samples."""
+    import gc
+
+    import torch
+
+    fn()
+    times = []
+    gc.disable()
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _fwd_layout(z, layout):
+    """``z`` copied one element past its allocation's start for the
+    "offset" case, else ``z``."""
+    import torch
+
+    if layout == "offset":
+        flat = torch.empty(z.numel() + 1, dtype=z.dtype, device=z.device)
+        shifted = flat[1:].view(z.shape)
+        shifted.copy_(z)
+        return shifted
+    return z
+
+
+def _fwd_gate(z, gamma, beta, what: str, bits) -> float:
+    """The forward kernel against its plain version on ``z``: bitwise,
+    same shape and dtype. Returns max|Δ| (0 when it passes)."""
     import torch
 
     from dptpu_torch.ops.fused_stem import (
@@ -244,47 +355,267 @@ def phase_forward_kernel():
         affine_relu_pool_plain,
     )
 
+    y = affine_relu_pool_forward(z, gamma, beta)
+    y_ref = affine_relu_pool_plain(z, gamma, beta)
+    torch.cuda.synchronize()
+    check(y.shape == y_ref.shape and y.dtype == y_ref.dtype,
+          f"{what}: kernel gives {tuple(y.shape)} {y.dtype}, plain "
+          f"{tuple(y_ref.shape)} {y_ref.dtype}")
+    err = (y.float() - y_ref.float()).abs().max().item()
+    check(torch.equal(y.view(bits), y_ref.view(bits)),
+          f"{what}: kernel differs from the plain version (max|Δ| {err})")
+    return err
+
+
+def fwd_host_parts(z, gamma, beta) -> dict:
+    """The forward wrapper's host time a call at ``z``'s shape
+    (:func:`host_us`), and its parts: allocating y, the C entry with its
+    kernel launch, and the C entry alone (an empty batch returns before it
+    launches). What is left is the wrapper's Python: checks and
+    bookkeeping."""
+    from dptpu_torch.ops import fused_stem
+
+    y = fused_stem.affine_relu_pool_forward(z, gamma, beta)
+    fns = fused_stem._kernels()
+    index = z.get_device()
+    vcode = fused_stem._DTYPE_CODES[gamma.dtype]
+    args = [fused_stem._DTYPE_CODES[z.dtype], int(fused_stem.vectorized(z, y)),
+            vcode, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            y.data_ptr(), *z.shape, fns.stream(index)]
+    empty = args[:7] + [0] + args[8:]
+    return {
+        "wrapper": host_us(
+            lambda: fused_stem.affine_relu_pool_forward(z, gamma, beta)),
+        "alloc": host_us(lambda: z.new_empty(y.shape)),
+        "entry_launch": host_us(lambda: fns.fwd(*args)),
+        "entry": host_us(lambda: fns.fwd(*empty)),
+    }
+
+
+def phase_forward_kernel():
+    """Fused stem forward kernel vs its plain version, bitwise, at every
+    shape the slices give it (the train stem of batch 128, the serve stem
+    of exec batches 64, 16, 4 and 2, all at 224) and at the cases of
+    ``FWD_PATH_CASES``, f32 and bf16, randn and tie-heavy inputs, negative
+    gammas. At each slice shape it prints the kernel's device time
+    (a CUDA graph of launches) and, on a line of its own, the wrapper's
+    host time a call; at the train stem the kernel's registers, occupancy and
+    achieved rate. Returns the train-stem bf16 row of the kernel table,
+    with the serve exec-64 f32 time."""
+    import torch
+
+    from dptpu_torch.ops.fused_stem import (
+        affine_relu_pool_forward,
+        affine_relu_pool_plain,
+        forward_kernel_attrs,
+        vectorized,
+    )
+
     rng = np.random.RandomState(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = None
+    row = {}
     max_err = 0.0
-    slice_shapes = [(n, 112, 112, 64) for n in (128, 64, 16, 4, 2)]
     for dtype, itemsize, bits in ((torch.float32, 4, torch.int32),
                                   (torch.bfloat16, 2, torch.int16)):
-        for shape in slice_shapes + [(2, 8, 8, 64), (2, 32, 32, 64),
-                                     (1, 7, 9, 64)]:
+        name = str(dtype)[6:]
+        for shape in FWD_SLICE_SHAPES:
             gamma, beta = _stem_case(rng, shape, dtype)
             zs = torch.randn(shape, device="cuda", generator=gen)
             launches0 = affine_relu_pool_forward.launches
             for kind, zn in (("randn", zs), ("ties", torch.round(zs * 2) / 2)):
                 z = zn.to(dtype)
-                y = affine_relu_pool_forward(z, gamma, beta)
-                y_ref = affine_relu_pool_plain(z, gamma, beta)
-                torch.cuda.synchronize()
-                check(y.shape == y_ref.shape and y.dtype == y_ref.dtype,
-                      f"fused stem {dtype} {shape}: kernel gives "
-                      f"{tuple(y.shape)} {y.dtype}, plain "
-                      f"{tuple(y_ref.shape)} {y_ref.dtype}")
-                err = (y.float() - y_ref.float()).abs().max().item()
-                max_err = max(max_err, err)
-                check(torch.equal(y.view(bits), y_ref.view(bits)),
-                      f"fused stem {dtype} {shape} {kind}: kernel differs "
-                      f"from the plain version (max|Δ| {err})")
-            ms = time_ms(lambda: affine_relu_pool_forward(z, gamma, beta))
+                max_err = max(max_err, _fwd_gate(
+                    z, gamma, beta, f"fused stem {name} {shape} {kind}", bits))
+            path = "vectorized" if vectorized(z) else "scalar-channel"
+
+            def fwd():
+                return affine_relu_pool_forward(z, gamma, beta)
+
+            device_ms = graph_device_us(fwd) / 1e3
+            ms = time_ms(fwd)
+            host = host_us(fwd)
             plain_ms = time_ms(lambda: affine_relu_pool_plain(z, gamma, beta))
             bound = stem_bound_ms(shape, itemsize)
-            print(f"kernel fused_stem_fwd {str(dtype)[6:]} {list(shape)}: "
-                  f"bitwise equal to plain (randn + ties, negative gamma); "
-                  f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-                  f"bound {bound * 1e3:.2f} us ({bound / ms:.1%} of bound), "
-                  f"launches in this check and its timing "
-                  f"{affine_relu_pool_forward.launches - launches0}"
-                  f"{'' if shape in slice_shapes else ' (not a slice shape)'}",
+            print(f"kernel fused_stem_fwd {name} {list(shape)}: bitwise "
+                  f"equal to plain (randn + ties, negative gamma; {path} "
+                  f"instantiation); device {device_ms * 1e3:.1f} us a launch "
+                  f"({GRAPH_CALLS} launches in a CUDA graph), bound "
+                  f"{bound * 1e3:.2f} us ({bound / device_ms:.1%} of bound); "
+                  f"queued-window time {ms * 1e3:.1f} us, plain "
+                  f"{plain_ms * 1e3:.1f} us; launches in this check and its "
+                  f"timing {affine_relu_pool_forward.launches - launches0}",
                   flush=True)
+            print(f"host fused_stem_fwd {name} {list(shape)}: "
+                  f"{host:.1f} us of host time a wrapper call (perf_counter "
+                  f"over {HOST_CALLS} queued calls, median of 7)", flush=True)
+            if shape[0] == 2:
+                parts = fwd_host_parts(z, gamma, beta)
+                rest = (parts["wrapper"] - parts["alloc"]
+                        - parts["entry_launch"])
+                print(f"host fused_stem_fwd {name} {list(shape)} parts: "
+                      f"wrapper {parts['wrapper']:.1f} us = allocating y "
+                      f"{parts['alloc']:.1f} + C entry with its launch "
+                      f"{parts['entry_launch']:.1f} (the entry alone "
+                      f"{parts['entry']:.1f}) + checks and bookkeeping "
+                      f"{rest:.1f}", flush=True)
             if dtype is torch.bfloat16 and shape == TRAIN_STEM:
-                row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                attrs = forward_kernel_attrs(dtype, True, shape[-1])
+                print(f"kernel fused_stem_fwd {name} {list(shape)} "
+                      f"vectorized instantiation: {attrs['registers']} "
+                      f"registers a thread, {attrs['local_bytes']} local "
+                      f"(spill) bytes a thread, {attrs['shared_bytes']} "
+                      f"shared bytes and {attrs['threads']} threads a block, "
+                      f"{attrs['blocks_per_sm']} resident blocks an SM; "
+                      f"achieved {bound * HBM_BYTES_PER_S / device_ms / 1e9:.1f}"
+                      f" GB/s of the {HBM_BYTES_PER_S / 1e9:.0f} GB/s bound",
+                      flush=True)
+            if dtype is torch.float32 and shape == SERVE_EXEC64:
+                row.update(serve_exec64_f32_ms=ms,
+                           serve_exec64_f32_bound_ms=bound)
+        for shape, layout in FWD_PATH_CASES:
+            zs = torch.randn(shape, device="cuda", generator=gen)
+            for vdtype in (torch.float32, torch.bfloat16):
+                gamma, beta = _stem_case(rng, shape, vdtype)
+                for kind, zn in (("randn", zs),
+                                 ("ties", torch.round(zs * 2) / 2)):
+                    z = _fwd_layout(zn.to(dtype), layout)
+                    max_err = max(max_err, _fwd_gate(
+                        z, gamma, beta,
+                        f"fused stem {name} {shape}"
+                        f"{f' ({layout})' if layout else ''} {kind}, "
+                        f"gamma/beta {str(vdtype)[6:]}", bits))
+            path = "vectorized" if vectorized(z) else "scalar-channel"
+            print(f"kernel fused_stem_fwd {name} {list(shape)}"
+                  f"{f' ({layout})' if layout else ''}: bitwise equal to "
+                  f"plain (randn + ties, negative gamma, gamma/beta in f32 "
+                  f"and in bf16; {path} instantiation; not timed)",
+                  flush=True)
     row["max_abs_err"] = max_err
     return row
+
+
+# the comparison with the parent commit's forward (``--parent DIR``):
+# (label, shape, dtype, what is timed) — the kernel's device time where
+# the kernel is long, the wrapper's host time where the host binds
+PARENT_CASES = (
+    ("train stem", TRAIN_STEM, "bfloat16", "device"),
+    ("serve exec 64", SERVE_EXEC64, "float32", "device"),
+    ("serve exec 2", (2, 112, 112, 64), "float32", "host"),
+    ("serve exec 2", (2, 112, 112, 64), "bfloat16", "host"),
+)
+# seconds a worker of the parent comparison may take to answer a request
+AB_ANSWER_S = 120
+
+
+def ab_worker(tree: str):
+    """``chip_smoke.py --ab-worker TREE``: one side of the parent
+    comparison, run on TREE's own ``dptpu_torch``. For each request line
+    ``{"shape", "dtype", "what"}`` it calls TREE's forward wrapper on z,
+    gamma and beta made on the card from seed 5 (the same bits in every
+    tree; gamma/beta in z's dtype, as the model passes them) and answers
+    one JSON line: one ``time_ms`` window in ms (``"device"``), one
+    :func:`host_us` sample in µs (``"host"``), or the SHA-256 of y's bytes
+    (``"digest"``)."""
+    import hashlib
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    from dptpu_torch.ops import fused_stem
+
+    check(fused_stem.__file__.startswith(tree + os.sep),
+          f"--ab-worker {tree}: imported {fused_stem.__file__}")
+    from dptpu_torch.kernels.build import load_library
+
+    load_library()
+    print(json.dumps({"ready": tree}), flush=True)
+    inputs = {}
+    for line in sys.stdin:
+        req = json.loads(line)
+        shape, dtype = tuple(req["shape"]), getattr(torch, req["dtype"])
+        if (shape, dtype) not in inputs:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            z = torch.randn(shape, device="cuda", generator=gen)
+            gamma = torch.randn(shape[-1], device="cuda", generator=gen)
+            beta = torch.randn(shape[-1], device="cuda", generator=gen)
+            inputs[shape, dtype] = (z.to(dtype), (gamma * 0.5 + 1).to(dtype),
+                                    (beta * 0.1).to(dtype))
+        z, gamma, beta = inputs[shape, dtype]
+
+        def fwd():
+            return fused_stem.affine_relu_pool_forward(z, gamma, beta)
+
+        if req["what"] == "device":
+            value = time_ms(fwd)
+        elif req["what"] == "host":
+            value = host_us(fwd)
+        else:
+            value = hashlib.sha256(
+                fwd().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        print(json.dumps({"value": value}), flush=True)
+
+
+def phase_parent_ab(parent: str):
+    """The forward against the parent commit's, from the two trees in
+    turns on this card: one worker process a tree (:func:`ab_worker`),
+    asked alternately (:func:`paired`) at each of ``PARENT_CASES``, after
+    a check that both give the same y bit for bit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    check(os.path.isdir(os.path.join(parent, "dptpu_torch")),
+          f"--parent {parent}: no dptpu_torch package there")
+    workers = {}
+
+    def answer(side, timeout_s):
+        w = workers[side]
+        ready, _, _ = select.select([w.stdout], [], [], timeout_s)
+        check(bool(ready), f"parent A/B: the {side} worker gave no answer "
+                           f"in {timeout_s} s")
+        line = w.stdout.readline()
+        if not line:
+            fail(f"parent A/B: the {side} worker exited ({w.wait()})")
+        return json.loads(line)
+
+    def ask(side, req):
+        workers[side].stdin.write(json.dumps(req) + "\n")
+        workers[side].stdin.flush()
+        return answer(side, AB_ANSWER_S)["value"]
+
+    try:
+        for side, tree in (("change", here), ("parent", parent)):
+            workers[side] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ab-worker",
+                 os.path.abspath(tree)],
+                cwd=tree, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                text=True)
+        for side in workers:  # each tree builds its own kernels first
+            answer(side, TOOL_TIMEOUT_S)
+        for label, shape, dtype, what in PARENT_CASES:
+            req = {"shape": list(shape), "dtype": dtype}
+            digests = {side: ask(side, dict(req, what="digest"))
+                       for side in workers}
+            check(digests["change"] == digests["parent"],
+                  f"parent A/B {label} {dtype}: the two trees' y differ")
+            p = paired(lambda: ask("change", dict(req, what=what)),
+                       lambda: ask("parent", dict(req, what=what)))
+            scale = 1e3 if what == "device" else 1.0  # to us
+            print(f"A/B fused_stem_fwd against {parent}: {label} {dtype} "
+                  f"{list(shape)}, {what} time a call (y bitwise equal in "
+                  f"both trees): this tree {p['a_ms'] * scale:.1f} us, that "
+                  f"one {p['b_ms'] * scale:.1f} us; this - that over {PAIRS}"
+                  f" paired samples: median {p['delta_ms'] * scale:.2f} us, "
+                  f"IQR {p['q1'] * scale:.2f}..{p['q3'] * scale:.2f} us, "
+                  f"min..max {p['min'] * scale:.2f}..{p['max'] * scale:.2f} "
+                  f"us: {paired_verdict(p, 'that tree')}", flush=True)
+    finally:
+        for w in workers.values():
+            w.stdin.close()
+            try:
+                w.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                w.kill()
+                w.wait()
 
 
 # shapes that reach the backward kernel's other code paths, gated and not
@@ -331,7 +662,7 @@ def phase_backward_kernel():
         affine_relu_pool_backward,
         affine_relu_pool_backward_plain,
         backward_kernel_attrs,
-        backward_vectorized,
+        vectorized,
     )
 
     rng = np.random.RandomState(1)
@@ -378,7 +709,7 @@ def phase_backward_kernel():
                           f"by {(a.float() - r.float()).abs().max().item()}")
                 check(all(torch.equal(x, y) for x, y in zip(got, again)),
                       f"{what}: two launches differ (not deterministic)")
-            path = ("vectorized" if backward_vectorized(z, g_in.contiguous())
+            path = ("vectorized" if vectorized(z, g_in.contiguous())
                     else "scalar-channel")
             verdict = (f"dz bitwise equal to plain, dgamma/dbeta within rtol "
                        f"{BWD_RTOL:g} atol {BWD_ATOL:g}, deterministic (randn "
@@ -885,18 +1216,36 @@ def phase_train_outputs():
     _compare_steps("card vs plain CPU path (fused stem)", fused, cpu)
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="the port's proof that it starts on the GPU")
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="instead of the smoke, time the forward kernel against DIR's "
+             "(a tree of the parent commit, e.g. from git archive) in "
+             "turns on this card")
+    parser.add_argument("--ab-worker", metavar="TREE",
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    if args.ab_worker:
+        ab_worker(args.ab_worker)
+        return
     try:
         import dptpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the dptpu_torch package is not beside chip_smoke.py: {e}")
     phase_device()
     phase_build()
+    if args.parent:
+        phase_parent_ab(args.parent)
+        return
     fwd_row = phase_forward_kernel()
     bwd_row = phase_backward_kernel()
     t0 = time.perf_counter()
@@ -932,6 +1281,8 @@ def main():
             "bound_ms": fwd_row["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "serve_exec64_f32_ms": fwd_row["serve_exec64_f32_ms"],
+            "serve_exec64_f32_bound_ms": fwd_row["serve_exec64_f32_bound_ms"],
         },
         {
             "name": "fused_stem_bwd",

@@ -206,6 +206,13 @@ __device__ __forceinline__ void store_idx(uint8_t* p,
   }
 }
 
+// element i of a [C] vector of f32 (bf16 == 0) or bf16, as f32 (exact)
+__device__ __forceinline__ float vector_at(const void* p, int bf16, int i) {
+  return bf16 ? __bfloat162float(
+                    __ldg(static_cast<const __nv_bfloat16*>(p) + i))
+              : __ldg(static_cast<const float*>(p) + i);
+}
+
 // jnp.maximum / torch.maximum: NaN in either operand wins (one instruction)
 __device__ __forceinline__ float max_nan(float a, float b) {
   float d;
@@ -274,8 +281,9 @@ Geo geo_for(int B, int H, int W, int C) {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, 3)
 fused_stem_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta, T* __restrict__ dz,
+                      const void* __restrict__ gamma,
+                      const void* __restrict__ beta, int vec_bf16,
+                      T* __restrict__ dz,
                       double* __restrict__ part_dg,
                       double* __restrict__ part_db, const Geo geo) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -327,9 +335,19 @@ fused_stem_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
   }
   __syncthreads();
 
-  // A: every window of the tile and its halo scanned once
+  // the thread's channels of gamma and beta, as f32 (exact)
+  float gam[VEC], bet[VEC];
   if (lane < active) {
     const int c = c0 + lane * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      gam[j] = vector_at(gamma, vec_bf16, c + j);
+      bet[j] = vector_at(beta, vec_bf16, c + j);
+    }
+  }
+
+  // A: every window of the tile and its halo scanned once
+  if (lane < active) {
     for (int w = slot; w < kWR * kWC; w += slots) {
       const int wu = w / kWC, wv = w - wu * kWC;
       const int u = u0 + wu, v = v0 + wv;
@@ -342,13 +360,9 @@ fused_stem_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
           widx[j] = kPhantom;
         }
       } else {
-        float gam[VEC], bet[VEC], best[VEC];
+        float best[VEC];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          gam[j] = __ldg(gamma + c + j);
-          bet[j] = __ldg(beta + c + j);
-          widx[j] = 0;
-        }
+        for (int j = 0; j < VEC; ++j) widx[j] = 0;
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
           const int ih = 2 * u - 1 + r;
@@ -390,7 +404,6 @@ fused_stem_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
 
   // B: each owned window's 2x2 block of dz, gathered from <= 4 windows
   if (lane < active) {
-    const int c = c0 + lane * VEC;
     for (int w = slot; w < kTU * kTV; w += slots) {
       const int wu = w / kTV, wv = w - wu * kTV;
       const int u = u0 + wu, v = v0 + wv;
@@ -414,17 +427,16 @@ fused_stem_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
         const auto tap = [](uint8_t kw, float gw, int k) {
           return kw == k ? gw : 0.f;
         };
-        const float gam = __ldg(gamma + c + j);
-        d00[j] = __fmul_rn(gam, tap(k00[j], g00[j], 4));
-        d01[j] = __fmul_rn(
-            gam, __fadd_rn(tap(k00[j], g00[j], 5), tap(k01[j], g01[j], 3)));
-        d10[j] = __fmul_rn(
-            gam, __fadd_rn(tap(k00[j], g00[j], 7), tap(k10[j], g10[j], 1)));
+        d00[j] = __fmul_rn(gam[j], tap(k00[j], g00[j], 4));
+        d01[j] = __fmul_rn(gam[j], __fadd_rn(tap(k00[j], g00[j], 5),
+                                             tap(k01[j], g01[j], 3)));
+        d10[j] = __fmul_rn(gam[j], __fadd_rn(tap(k00[j], g00[j], 7),
+                                             tap(k10[j], g10[j], 1)));
         d11[j] = __fmul_rn(
-            gam, __fadd_rn(__fadd_rn(__fadd_rn(tap(k00[j], g00[j], 8),
-                                               tap(k01[j], g01[j], 6)),
-                                     tap(k10[j], g10[j], 2)),
-                           tap(k11[j], g11[j], 0)));
+            gam[j], __fadd_rn(__fadd_rn(__fadd_rn(tap(k00[j], g00[j], 8),
+                                                  tap(k01[j], g01[j], 6)),
+                                        tap(k10[j], g10[j], 2)),
+                              tap(k11[j], g11[j], 0)));
       }
       T* p0 = dzb + ((int64_t)(2 * u) * W + 2 * v) * C + lane * VEC;
       const bool col1 = 2 * v + 1 < W, row1 = 2 * u + 1 < H;
@@ -538,9 +550,9 @@ cudaError_t allow_shared_memory() {
 }
 
 template <typename T, int VEC>
-int launch(const void* z, const void* g, const float* gamma,
-           const float* beta, void* dz, double* partials, float* dgb, int B,
-           int H, int W, int C, cudaStream_t stream) {
+int launch(const void* z, const void* g, const void* gamma,
+           const void* beta, int vec_bf16, void* dz, double* partials,
+           float* dgb, int B, int H, int W, int C, cudaStream_t stream) {
   const Geo geo = geo_for<T, VEC>(B, H, W, C);
   const int64_t blocks = geo.rows * geo.chunks;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
@@ -551,7 +563,7 @@ int launch(const void* z, const void* g, const float* gamma,
   fused_stem_bwd_kernel<T, VEC>
       <<<(unsigned)blocks, block_for(geo), geo.bytes, stream>>>(
       static_cast<const T*>(z), static_cast<const T*>(g), gamma, beta,
-      static_cast<T*>(dz), part_dg, part_db, geo);
+      vec_bf16, static_cast<T*>(dz), part_dg, part_db, geo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_stem_bwd_finalize<<<C, kFinalThreads, 0, stream>>>(
@@ -599,35 +611,38 @@ extern "C" int dptpu_fused_stem_bwd_blocks(int B, int H, int W, int C) {
 
 // dtype: 0 = float32, 1 = bfloat16; vec: 1 = 16-byte channel vectors (C a
 // multiple of 4 for f32 or 8 for bf16, and z, g, dz 16-byte aligned), 0 =
-// one channel a thread. z and dz are [B, H, W, C] contiguous, g is
-// [B, ceil(H/2), ceil(W/2), C] contiguous, all of z's dtype; gamma/beta are
-// [C] float32; partials is [2, C, rows] float64 scratch (rows from
+// one channel a thread; vdtype: the dtype of gamma/beta, 0 = float32, 1 =
+// bfloat16. z and dz are [B, H, W, C] contiguous, g is [B, ceil(H/2),
+// ceil(W/2), C] contiguous, all of z's dtype; gamma/beta are [C]
+// contiguous; partials is [2, C, rows] float64 scratch (rows from
 // dptpu_fused_stem_bwd_blocks); dgb receives dgamma_t then dbeta_t, [2, C]
 // float32.
-extern "C" int dptpu_fused_stem_bwd(int dtype, int vec, const void* z,
-                                    const void* g, const void* gamma,
-                                    const void* beta, void* dz,
-                                    void* partials, void* dgb, int B, int H,
-                                    int W, int C, void* stream) {
-  if (!shape_ok(B, H, W, C)) return (int)cudaErrorInvalidValue;
+extern "C" int dptpu_fused_stem_bwd(int dtype, int vec, int vdtype,
+                                    const void* z, const void* g,
+                                    const void* gamma, const void* beta,
+                                    void* dz, void* partials, void* dgb,
+                                    int B, int H, int W, int C,
+                                    void* stream) {
+  if (!shape_ok(B, H, W, C) || (vdtype != 0 && vdtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (vec && !(aligned16(z) && aligned16(g) && aligned16(dz) &&
                C % (dtype == 0 ? 4 : 8) == 0))
     return (int)cudaErrorMisalignedAddress;
-  const float* gm = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
   double* part = static_cast<double*>(partials);
   float* out = static_cast<float*>(dgb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && vec)
-    return launch<float, 4>(z, g, gm, bt, dz, part, out, B, H, W, C, s);
+    return launch<float, 4>(z, g, gamma, beta, vdtype, dz, part, out, B, H,
+                            W, C, s);
   if (dtype == 0)
-    return launch<float, 1>(z, g, gm, bt, dz, part, out, B, H, W, C, s);
+    return launch<float, 1>(z, g, gamma, beta, vdtype, dz, part, out, B, H,
+                            W, C, s);
   if (dtype == 1 && vec)
-    return launch<__nv_bfloat16, 8>(z, g, gm, bt, dz, part, out, B, H, W, C,
-                                    s);
+    return launch<__nv_bfloat16, 8>(z, g, gamma, beta, vdtype, dz, part, out,
+                                    B, H, W, C, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 1>(z, g, gm, bt, dz, part, out, B, H, W, C,
-                                    s);
+    return launch<__nv_bfloat16, 1>(z, g, gamma, beta, vdtype, dz, part, out,
+                                    B, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }
 

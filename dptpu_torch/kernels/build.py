@@ -131,19 +131,23 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             fn = lib.dptpu_fused_stem_fwd
             fn.argtypes = [
-                ctypes.c_int,                                   # dtype
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, vec, vdtype
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # z, g, b
                 ctypes.c_void_p,                                # y
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,                                # stream
             ]
             fn.restype = ctypes.c_int
+            fn = lib.dptpu_fused_stem_fwd_attrs
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]                     # ..., out[5]
+            fn.restype = ctypes.c_int
             fn = lib.dptpu_fused_stem_bwd_blocks
             fn.argtypes = [ctypes.c_int] * 4                    # B, H, W, C
             fn.restype = ctypes.c_int
             fn = lib.dptpu_fused_stem_bwd
             fn.argtypes = [
-                ctypes.c_int, ctypes.c_int,                     # dtype, vec
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, vec, vdtype
                 ctypes.c_void_p, ctypes.c_void_p,               # z, g
                 ctypes.c_void_p, ctypes.c_void_p,               # gamma, beta
                 ctypes.c_void_p,                                # dz

@@ -37,6 +37,8 @@ affine are monotone per channel, so the pool commutes with them and the
 
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.nn.functional as F
 
@@ -133,8 +135,12 @@ def _check_grad_shape(z: torch.Tensor, g: torch.Tensor) -> None:
             f"ceil(W/2), C] for z {tuple(z.shape)}, got {tuple(g.shape)}")
 
 
-def _check_cuda_args(op: str, z: torch.Tensor, vectors) -> None:
-    if z.device.type != "cuda":
+def _check_cuda_args(op: str, z: torch.Tensor, gamma_t: torch.Tensor,
+                     beta_t: torch.Tensor):
+    """Raises on what the kernels do not take; returns the dtype codes of
+    ``z`` and of ``gamma_t``/``beta_t`` (which the kernels read as they
+    are: f32 or bf16, one dtype for both) and ``z``'s device index."""
+    if not z.is_cuda:
         raise ValueError(f"{op}: no kernel for device {z.device}")
     if z.dim() != 4:
         raise ValueError(f"{op}: z must be NHWC 4-D, got shape "
@@ -148,19 +154,97 @@ def _check_cuda_args(op: str, z: torch.Tensor, vectors) -> None:
             f"shape {tuple(z.shape)}); pass a channels_last tensor's "
             f"permute(0, 2, 3, 1) view"
         )
-    c = z.shape[3]
-    for name, t in vectors:
-        if t.shape != (c,) or t.device != z.device:
+    c, index = z.shape[3], z.get_device()
+    for name, t in (("gamma_t", gamma_t), ("beta_t", beta_t)):
+        if (t.shape != (c,) or t.get_device() != index
+                or not t.is_contiguous()):
             raise ValueError(
-                f"{op}: {name} must be [{c}] on {z.device}, got "
-                f"{tuple(t.shape)} on {t.device}"
+                f"{op}: {name} must be a contiguous [{c}] on {z.device}, "
+                f"got {tuple(t.shape)} (strides {t.stride()}) on {t.device}"
             )
+    vdtype = _DTYPE_CODES.get(gamma_t.dtype)
+    if vdtype is None or beta_t.dtype != gamma_t.dtype:
+        raise ValueError(f"{op}: gamma_t and beta_t must both be float32 or "
+                         f"both bfloat16, got {gamma_t.dtype} and "
+                         f"{beta_t.dtype}")
+    return _DTYPE_CODES[z.dtype], vdtype, index
 
 
 def _raise_on_launch_error(op: str, rc: int, z: torch.Tensor) -> None:
+    raise RuntimeError(f"{op} kernel launch failed: cudaError {rc} for "
+                       f"z {tuple(z.shape)} {z.dtype}")
+
+
+# the entry points of the built library, looked up once
+_entries = None
+
+
+def _kernels():
+    global _entries
+    if _entries is None:
+        from dptpu_torch.kernels.build import load_library
+
+        lib = load_library()
+        _entries = types.SimpleNamespace(
+            fwd=lib.dptpu_fused_stem_fwd,
+            fwd_attrs=lib.dptpu_fused_stem_fwd_attrs,
+            bwd=lib.dptpu_fused_stem_bwd,
+            bwd_blocks=lib.dptpu_fused_stem_bwd_blocks,
+            bwd_attrs=lib.dptpu_fused_stem_bwd_attrs,
+            # a device's current stream handle as an int, the call Triton's
+            # launcher makes: torch.cuda.current_stream(i).cuda_stream
+            # builds a Stream object first, ~3 us of host time a launch
+            stream=torch._C._cuda_getCurrentRawStream)
+    return _entries
+
+
+def _vector_ok(channels: int, itemsize: int, pointer_bits: int) -> int:
+    """1 where C is a multiple of the 16-byte vector width and every
+    pointer (``pointer_bits``: their bitwise or) is 16-byte aligned."""
+    return int(channels % (16 // itemsize) == 0 and pointer_bits % 16 == 0)
+
+
+def vectorized(*tensors: torch.Tensor) -> bool:
+    """Whether a stem kernel takes these tensors (``z`` first) in 16-byte
+    channel vectors (8 bf16 or 4 f32 channels a copy): C a multiple of the
+    vector width and every tensor 16-byte aligned (a view with a storage
+    offset may not be). Otherwise the kernel's scalar-channel
+    instantiation runs: same tiling, one channel a thread."""
+    bits = 0
+    for t in tensors:
+        bits |= t.data_ptr()
+    z = tensors[0]
+    return bool(_vector_ok(z.shape[-1], z.element_size(), bits))
+
+
+def _kernel_attrs(fn, op: str, dtype: torch.dtype, vectorized: bool,
+                  channels: int) -> dict:
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    rc = fn(_DTYPE_CODES[dtype], int(vectorized), channels,
+            ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"{op} kernel launch failed: cudaError {rc} for "
-                           f"z {tuple(z.shape)} {z.dtype}")
+        raise RuntimeError(f"{op} attributes: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm"), out))
+
+
+def forward_kernel_attrs(dtype: torch.dtype, vectorized: bool,
+                         channels: int) -> dict:
+    """What the compiler and the occupancy calculator say of the forward
+    kernel's instantiation for ``dtype`` (vectorized or scalar) at
+    ``channels``: registers and local (spill) bytes a thread, shared
+    bytes and threads a block, resident blocks an SM. Needs the card."""
+    return _kernel_attrs(_kernels().fwd_attrs, "fused stem forward", dtype,
+                         vectorized, channels)
+
+
+def backward_kernel_attrs(dtype: torch.dtype, vectorized: bool,
+                          channels: int) -> dict:
+    """:func:`forward_kernel_attrs` of the backward kernel."""
+    return _kernel_attrs(_kernels().bwd_attrs, "fused stem backward", dtype,
+                         vectorized, channels)
 
 
 def affine_relu_pool_forward(z: torch.Tensor, gamma_t: torch.Tensor,
@@ -171,62 +255,33 @@ def affine_relu_pool_forward(z: torch.Tensor, gamma_t: torch.Tensor,
 
     On the CPU this is :func:`affine_relu_pool_plain`. On CUDA ``z`` must
     be NHWC-contiguous (a channels_last NCHW tensor's ``permute(0, 2, 3,
-    1)`` view is) and the kernel runs on the current stream; anything it
-    does not take raises."""
-    if z.device.type == "cpu":
+    1)`` view is), ``gamma_t``/``beta_t`` contiguous and both f32 or both
+    bf16 (the kernel reads them as they are: no cast is launched), and the
+    kernel runs on the current stream, vectorized where
+    :func:`vectorized` allows; anything it does not take raises."""
+    if not z.is_cuda and z.device.type == "cpu":
         return affine_relu_pool_plain(z, gamma_t, beta_t)
-    _check_cuda_args("affine_relu_pool", z,
-                     (("gamma_t", gamma_t), ("beta_t", beta_t)))
-    from dptpu_torch.kernels.build import load_library
-
-    lib = load_library()
+    zcode, vcode, index = _check_cuda_args("affine_relu_pool", z, gamma_t,
+                                           beta_t)
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return affine_relu_pool_forward(z, gamma_t, beta_t)
     b, h, w, c = z.shape
-    gam = gamma_t.to(torch.float32).contiguous()
-    bet = beta_t.to(torch.float32).contiguous()
-    y = torch.empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
-                    dtype=z.dtype, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = lib.dptpu_fused_stem_fwd(
-            _DTYPE_CODES[z.dtype], z.data_ptr(), gam.data_ptr(),
-            bet.data_ptr(), y.data_ptr(), b, h, w, c, stream,
-        )
-    _raise_on_launch_error("fused stem forward", rc, z)
+    y = z.new_empty((b, (h + 1) // 2, (w + 1) // 2, c))
+    zp, yp = z.data_ptr(), y.data_ptr()
+    fns = _kernels()
+    rc = fns.fwd(
+        zcode, _vector_ok(c, z.element_size(), zp | yp), vcode, zp,
+        gamma_t.data_ptr(), beta_t.data_ptr(), yp, b, h, w, c,
+        fns.stream(index),
+    )
+    if rc:
+        _raise_on_launch_error("fused stem forward", rc, z)
     affine_relu_pool_forward.launches += 1
     return y
 
 
 affine_relu_pool_forward.launches = 0
-
-
-def backward_vectorized(z: torch.Tensor, g: torch.Tensor) -> bool:
-    """Whether the backward kernel takes ``z`` and ``g`` in 16-byte
-    channel vectors (8 bf16 or 4 f32 channels a thread): C a multiple of
-    the vector width and both tensors 16-byte aligned (a view with a
-    storage offset may not be). Otherwise the kernel's scalar-channel
-    instantiation runs: same tiling, one channel a thread."""
-    per_vec = 16 // z.element_size()
-    return (z.shape[-1] % per_vec == 0 and z.data_ptr() % 16 == 0
-            and g.data_ptr() % 16 == 0)
-
-
-def backward_kernel_attrs(dtype: torch.dtype, vectorized: bool,
-                          channels: int) -> dict:
-    """What the compiler and the occupancy calculator say of the
-    backward kernel's instantiation for ``dtype`` (vectorized or scalar)
-    at ``channels``: registers and local (spill) bytes a thread, shared
-    bytes and threads a block, resident blocks an SM. Needs the card."""
-    import ctypes
-
-    from dptpu_torch.kernels.build import load_library
-
-    out = (ctypes.c_int * 5)()
-    rc = load_library().dptpu_fused_stem_bwd_attrs(
-        _DTYPE_CODES[dtype], int(vectorized), channels, ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"fused stem backward attributes: cudaError {rc}")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
-                     "blocks_per_sm"), out))
 
 
 def affine_relu_pool_backward(z: torch.Tensor, gamma_t: torch.Tensor,
@@ -235,44 +290,43 @@ def affine_relu_pool_backward(z: torch.Tensor, gamma_t: torch.Tensor,
     :func:`affine_relu_pool_backward_plain` for the math and shapes.
 
     On the CPU this is the plain version. On CUDA it launches the kernel
-    on the current stream, vectorized where :func:`backward_vectorized`
-    allows: ``z`` must be NHWC-contiguous, and an incoming ``g`` that is
-    not is copied to NHWC first (counted in
+    on the current stream, vectorized where :func:`vectorized` allows:
+    ``z`` must be NHWC-contiguous and ``gamma_t``/``beta_t`` as
+    :func:`affine_relu_pool_forward` takes them, and an incoming ``g``
+    that is not NHWC-contiguous is copied to NHWC first (counted in
     ``affine_relu_pool_backward.g_copies``). The per-tile partial sums of
     the affine grads go to a buffer allocated here and are summed by a
     second, fixed-order pass, so the result is the same on every run."""
-    if z.device.type == "cpu":
+    if not z.is_cuda and z.device.type == "cpu":
         return affine_relu_pool_backward_plain(z, gamma_t, beta_t, g)
-    _check_cuda_args("affine_relu_pool_backward", z,
-                     (("gamma_t", gamma_t), ("beta_t", beta_t)))
+    zcode, vcode, index = _check_cuda_args("affine_relu_pool_backward", z,
+                                           gamma_t, beta_t)
     _check_grad_shape(z, g)
     b, h, w, c = z.shape
-    if g.device != z.device or g.dtype != z.dtype:
+    if g.get_device() != index or g.dtype != z.dtype:
         raise ValueError(
             f"affine_relu_pool_backward: g must be {z.dtype} on {z.device}, "
             f"got {g.dtype} on {g.device}")
     if not g.is_contiguous():
         g = g.contiguous()
         affine_relu_pool_backward.g_copies += 1
-    from dptpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    gam = gamma_t.to(torch.float32).contiguous()
-    bet = beta_t.to(torch.float32).contiguous()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return affine_relu_pool_backward(z, gamma_t, beta_t, g)
+    fns = _kernels()
     dz = torch.empty_like(z)
-    rows = lib.dptpu_fused_stem_bwd_blocks(b, h, w, c)
-    partials = torch.empty((2, c, max(rows, 1)), dtype=torch.float64,
-                           device=z.device)
-    dgb = torch.empty((2, c), dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = lib.dptpu_fused_stem_bwd(
-            _DTYPE_CODES[z.dtype], int(backward_vectorized(z, g)),
-            z.data_ptr(), g.data_ptr(),
-            gam.data_ptr(), bet.data_ptr(), dz.data_ptr(),
-            partials.data_ptr(), dgb.data_ptr(), b, h, w, c, stream,
-        )
-    _raise_on_launch_error("fused stem backward", rc, z)
+    rows = fns.bwd_blocks(b, h, w, c)
+    partials = z.new_empty((2, c, max(rows, 1)), dtype=torch.float64)
+    dgb = z.new_empty((2, c), dtype=torch.float32)
+    zp, gp, dzp = z.data_ptr(), g.data_ptr(), dz.data_ptr()
+    rc = fns.bwd(
+        zcode, _vector_ok(c, z.element_size(), zp | gp | dzp), vcode, zp, gp,
+        gamma_t.data_ptr(), beta_t.data_ptr(), dzp,
+        partials.data_ptr(), dgb.data_ptr(), b, h, w, c,
+        fns.stream(index),
+    )
+    if rc:
+        _raise_on_launch_error("fused stem backward", rc, z)
     affine_relu_pool_backward.launches += 1
     return dz, dgb[0].to(gamma_t.dtype), dgb[1].to(beta_t.dtype)
 

@@ -359,6 +359,84 @@ def test_plain_backward_matches_jax_vjp_on_odd_kernel_path_shapes(plane, c,
     _assert_bwd_matches(got, ref)
 
 
+# -- the shapes the forward kernel's code paths take ------------------------
+# The forward kernel tiles the pooled plane in 8 x 8 windows too, in pairs of
+# rows, with the same channel vectors: the same channel counts reach its
+# vector tails and scalar instantiation, and these planes (9 x 9, 5 x 15
+# pooled; odd 9 x 9 and 5 x 15 with a padding row or column) are no
+# multiple of its tile or of its window pairs.
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", _PATH_CHANNELS)
+@pytest.mark.parametrize("plane", [(18, 18), (10, 30)])
+def test_plain_forward_matches_jax_xla_at_kernel_path_shapes(plane, c, dtype,
+                                                             ties):
+    """Even planes: against ``_fwd_xla``, bitwise, negative gammas, with
+    gamma/beta in the compute dtype as the model passes them."""
+    shape = (2, *plane, c)
+    z, gam, bet = _inputs(sum(shape), shape, ties=ties, negative_gamma=True)
+    tdt, jdt = _DTYPES[dtype]
+    (zt, gt, bt), (zj, gj, bj) = _both(z, gam, bet, dtype)
+    y = tfs.affine_relu_pool_plain(zt, gt.to(tdt), bt.to(tdt))
+    ref = jfs._fwd_xla(zj, gj.astype(jdt), bj.astype(jdt))
+    assert y.dtype == tdt and tuple(y.shape) == tuple(ref.shape)
+    np.testing.assert_array_equal(_np(y), _np(ref))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", _PATH_CHANNELS)
+@pytest.mark.parametrize("plane", [(17, 17), (9, 29)])
+def test_plain_forward_matches_public_jax_op_on_odd_kernel_path_shapes(
+        plane, c, dtype):
+    """Odd planes, where the JAX op takes its plain composition: the
+    port's public op (its plain version on the CPU) bitwise against it, on
+    tie-heavy input with negative gammas."""
+    shape = (2, *plane, c)
+    z, gam, bet = _inputs(sum(shape) + 1, shape, ties=True,
+                          negative_gamma=True)
+    tdt, jdt = _DTYPES[dtype]
+    (zt, gt, bt), (zj, gj, bj) = _both(z, gam, bet, dtype)
+    y = tfs.affine_relu_pool(zt, gt.to(tdt), bt.to(tdt))
+    ref = jfs.affine_relu_pool(zj, gj.astype(jdt), bj.astype(jdt))
+    assert tuple(y.shape) == tuple(ref.shape)
+    np.testing.assert_array_equal(_np(y), _np(ref))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 18, 18, 24), (1, 7, 9, 64)])
+def test_forward_takes_bf16_gamma_beta_as_their_f32_values(shape, dtype):
+    """The kernels read gamma_t/beta_t in f32 or bf16 as they come and
+    widen them exactly; so does the wrapper's CPU path: the same values
+    give bitwise the same ``y`` in either dtype."""
+    tdt = _DTYPES[dtype][0]
+    z, gam, bet = _inputs(sum(shape) + 2, shape, ties=True,
+                          negative_gamma=True)
+    zt = torch.from_numpy(z).to(tdt)
+    gb, bb = (torch.from_numpy(a).bfloat16() for a in (gam, bet))
+    y_bf16 = tfs.affine_relu_pool_forward(zt, gb, bb)
+    y_f32 = tfs.affine_relu_pool_forward(zt, gb.float(), bb.float())
+    assert y_bf16.dtype == y_f32.dtype == tdt
+    assert torch.equal(y_bf16, y_f32)
+
+
+@pytest.mark.parametrize("dtype,c,offset,want", [
+    (torch.float32, 64, 0, True), (torch.bfloat16, 64, 0, True),
+    (torch.float32, 6, 0, False), (torch.bfloat16, 12, 0, False),
+    (torch.bfloat16, 64, 1, False),
+])
+def test_vectorized_needs_whole_vectors_and_aligned_pointers(dtype, c,
+                                                             offset, want):
+    """The wrapper's pick of the kernels' instantiation: 16-byte channel
+    vectors need C a multiple of the vector width and every tensor 16-byte
+    aligned; a view one element into its storage is not."""
+    flat = torch.zeros(2 * 4 * 4 * c + offset, dtype=dtype)
+    z = flat[offset:].view(2, 4, 4, c)
+    y = torch.zeros(2, 2, 2, c, dtype=dtype)
+    assert tfs.vectorized(z, y) is want
+
+
 # -- the kernels' C interface -----------------------------------------------
 
 _EXTERN_C = re.compile(r'extern "C"\s+(\w+)\s+(\w+)\s*\(([^)]*)\)')
